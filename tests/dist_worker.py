@@ -28,7 +28,7 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-    from gnn_mwvc_tpu.parallel import init_distributed
+    from gnn_mwvc.parallel import init_distributed
 
     init_distributed(coordinator=coord, num_processes=nproc, process_id=pid)
     assert jax.process_count() == nproc, jax.process_count()
@@ -39,12 +39,12 @@ def main():
     from jax.sharding import PartitionSpec as P
     from jax.experimental import multihost_utils
 
-    from gnn_mwvc_tpu.graph import DeviceGraph, Graph
-    from gnn_mwvc_tpu.models import load_pretrained
-    from gnn_mwvc_tpu.models.gnn import score_graph
-    from gnn_mwvc_tpu.parallel import (make_mesh, make_sharded_forward,
+    from gnn_mwvc.graph import DeviceGraph, Graph
+    from gnn_mwvc.models import load_pretrained
+    from gnn_mwvc.models.gnn import score_graph
+    from gnn_mwvc.parallel import (make_mesh, make_sharded_forward,
                                        partition_device_graph)
-    from gnn_mwvc_tpu.parallel.sharded import _edge_arrays
+    from gnn_mwvc.parallel.sharded import _edge_arrays
 
     # deterministic instance, identical on both processes
     rng = np.random.default_rng(42)

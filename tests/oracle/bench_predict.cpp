@@ -48,7 +48,7 @@ int main(int argc, char **argv) {
     int iters = argc > 2 ? std::atoi(argv[2]) : 5;
     gnn::model m;
     const char *model_path =
-        argc > 3 ? argv[3] : "gnn_mwvc_tpu/models/weights/gnn_vc_sea2022.txt";
+        argc > 3 ? argv[3] : "gnn_mwvc/models/weights/gnn_vc_sea2022.txt";
     std::ifstream mf(model_path);
     if (!mf.is_open()) {
         std::fprintf(stderr, "cannot open model %s\n", model_path);

@@ -3,7 +3,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from gnn_mwvc_tpu.ops import build_ell, ell_segment_sum
+from gnn_mwvc.ops import build_ell, ell_segment_sum
 
 
 def exact_agg(indptr, indices, x):

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gnn_mwvc_tpu.core import baseline_solve
-from gnn_mwvc_tpu.graphio import cover_cost, is_vertex_cover
+from gnn_mwvc.core import baseline_solve
+from gnn_mwvc.graphio import cover_cost, is_vertex_cover
 from tests.test_core import brute_force_mwvc, small_random
 
 
@@ -35,7 +35,7 @@ def test_baseline_near_optimal_small(which):
 def test_baselines_comparable_to_flagship():
     """On a mid graph, our GNN solver should beat or match every baseline."""
     from tests.conftest import random_graph
-    from gnn_mwvc_tpu.solver import solve
+    from gnn_mwvc.solver import solve
 
     g = random_graph(1000, 10, seed=88, wmax=200)
     res = solve(g, time_limit=3.0)
@@ -59,8 +59,8 @@ def test_baseline_determinism():
 
 
 # ---- road-class differential gates vs the reference binaries ---------------
-# (VERDICT round-2 item 6: all four baselines test-gated within noise of
-# their binaries, with the oracle auto-built instead of skipping.)
+# (all four baselines test-gated within noise of their binaries, with the
+# oracle auto-built instead of skipping.)
 
 ORACLE_DIR = "/tmp/gnn_mwvc_oracle"
 _DIFF_BINS = ("FastWVC", "DynWVC2", "NuMWVC", "HILS")
@@ -85,7 +85,7 @@ def road90():
     import os
 
     import bench
-    from gnn_mwvc_tpu.graphio import write_metis
+    from gnn_mwvc.graphio import write_metis
 
     g = bench.build_road_graph(90)
     path = "/tmp/road90_diff.metis"
@@ -105,8 +105,8 @@ def _run_ref_binary(exe, argv, timeout=90):
 @pytest.mark.parametrize("which", ["fastwvc", "dynwvc2", "numwvc", "hils"])
 def test_baseline_road_differential(which, oracle_dir, road90):
     """Each reimplemented baseline must match its reference binary within
-    local-search noise on road90 at an equal cutoff (BASELINE.md records
-    the margins; DynWVC2/FastWVC/NuMWVC currently beat their binaries)."""
+    local-search noise on road90 at an equal cutoff (DynWVC2/FastWVC/NuMWVC
+    have beaten their binaries)."""
     import os
 
     path, g = road90
@@ -127,14 +127,13 @@ def test_baseline_road_differential(which, oracle_dir, road90):
                                  seed=1, cutoff=cutoff)
     assert is_vertex_cover(g, vc)
     assert cover_cost(g, vc) == cost
-    # within noise of the binary: never worse than 0.5%, and BASELINE.md
-    # records that three of the four actually beat their binaries
+    # within noise of the binary: never worse than 0.5%
     assert cost <= ref_cost * 1.005, (which, cost, ref_cost)
 
 
 def test_fastwvc_tuned_road_differential(oracle_dir, road90, tmp_path,
                                          capsys):
-    """fastwvc-tuned gated against its reference binary (ADVICE r4 #4):
+    """fastwvc-tuned gated against its reference binary:
     equal-cutoff road90, same 0.5% noise margin as the other four
     baselines.  The oracle reads `E N`, N weights, E 1-indexed edges on
     stdin and prints `best_cost,t_best`
@@ -142,7 +141,7 @@ def test_fastwvc_tuned_road_differential(oracle_dir, road90, tmp_path,
     import os
     import subprocess
 
-    from gnn_mwvc_tpu.solver.baselines.cli import main as bl_main
+    from gnn_mwvc.solver.baselines.cli import main as bl_main
 
     exe = os.path.join(oracle_dir, "fastWVC_tuned")
     if not os.path.exists(exe):  # stale oracle dir from an older build
@@ -167,7 +166,7 @@ def test_fastwvc_tuned_road_differential(oracle_dir, road90, tmp_path,
     assert rc == 0
     line = capsys.readouterr().out.strip().splitlines()[-1]
     cost = int(line.split(",")[1])
-    vc = __import__("gnn_mwvc_tpu.graphio", fromlist=["read_solution"]
+    vc = __import__("gnn_mwvc.graphio", fromlist=["read_solution"]
                     ).read_solution(sol)
     assert is_vertex_cover(g, vc)
     assert cover_cost(g, vc) == cost
@@ -179,9 +178,9 @@ def test_fastwvc_tuned_cli(tmp_path, capsys):
     gap — old_files/src/apps/fastWVC_tuned.cpp): greedy construction +
     shared local search must beat the bare construction and emit the CSV
     contract."""
-    from gnn_mwvc_tpu.core import greedy_cover
-    from gnn_mwvc_tpu.graphio import read_solution, write_metis
-    from gnn_mwvc_tpu.solver.baselines.cli import main as bl_main
+    from gnn_mwvc.core import greedy_cover
+    from gnn_mwvc.graphio import read_solution, write_metis
+    from gnn_mwvc.solver.baselines.cli import main as bl_main
     from tests.conftest import random_graph
 
     g = random_graph(1500, 8, seed=6, wmax=100)

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from gnn_mwvc_tpu.core import bfs_order
-from gnn_mwvc_tpu.graph import DeviceGraph, Graph
-from gnn_mwvc_tpu.ops.blocked import build_blocked, blocked_segment_sum
+from gnn_mwvc.core import bfs_order
+from gnn_mwvc.graph import DeviceGraph, Graph
+from gnn_mwvc.ops.blocked import build_blocked, blocked_segment_sum
 
 
 def geo_graph(side=50, seed=0, extra=0.1):
@@ -61,7 +61,7 @@ def test_blocked_agg_random_graph_correct_but_low_quality():
 
 
 def test_cluster_reorder_improves_quality():
-    from gnn_mwvc_tpu.core import cluster_order
+    from gnn_mwvc.core import cluster_order
 
     g = geo_graph(120, 4)  # big enough that windows can't cover everything
     rng = np.random.default_rng(5)
@@ -94,8 +94,8 @@ def test_device_graph_auto_aggregation():
 
 
 def test_forward_with_blocked_matches_ell(ex3_graph):
-    from gnn_mwvc_tpu.models import load_pretrained
-    from gnn_mwvc_tpu.models.gnn import score_graph
+    from gnn_mwvc.models import load_pretrained
+    from gnn_mwvc.models.gnn import score_graph
 
     g = geo_graph(30, 8)
     m = load_pretrained()
@@ -110,8 +110,8 @@ def test_forward_with_blocked_matches_ell(ex3_graph):
 
 
 def test_solve_with_reorder():
-    from gnn_mwvc_tpu.graphio import cover_cost, is_vertex_cover
-    from gnn_mwvc_tpu.solver import solve
+    from gnn_mwvc.graphio import cover_cost, is_vertex_cover
+    from gnn_mwvc.solver import solve
 
     g = geo_graph(35, 9)
     res_plain = solve(g, time_limit=2.0)

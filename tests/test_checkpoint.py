@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from gnn_mwvc_tpu.core import CoreSolver
-from gnn_mwvc_tpu.graphio import cover_cost, is_vertex_cover
-from gnn_mwvc_tpu.solver.checkpoint import (
+from gnn_mwvc.core import CoreSolver
+from gnn_mwvc.graphio import cover_cost, is_vertex_cover
+from gnn_mwvc.solver.checkpoint import (
     graph_fingerprint,
     load_checkpoint,
     resume_solve,
@@ -70,7 +70,7 @@ def test_resume_improves(tmp_path):
 
 
 def test_solve_with_checkpointing(tmp_path):
-    from gnn_mwvc_tpu.solver import solve
+    from gnn_mwvc.solver import solve
 
     g = random_graph(1200, 12, seed=66, wmax=400)
     path = str(tmp_path / "run.npz")
@@ -83,7 +83,7 @@ def test_solve_with_checkpointing(tmp_path):
 
 
 def test_metrics_utils(tmp_path):
-    from gnn_mwvc_tpu.utils import PhaseTimer, SolveMetrics, trace_span
+    from gnn_mwvc.utils import PhaseTimer, SolveMetrics, trace_span
 
     t = PhaseTimer()
     with t.span("a"):

@@ -7,9 +7,9 @@ reference binary (oracle) is cross-checked where both should be exact.
 import numpy as np
 import pytest
 
-from gnn_mwvc_tpu.core import CoreSolver, CoreLocalSearch
-from gnn_mwvc_tpu.graph import Graph
-from gnn_mwvc_tpu.graphio import is_vertex_cover, cover_cost
+from gnn_mwvc.core import CoreSolver, CoreLocalSearch
+from gnn_mwvc.graph import Graph
+from gnn_mwvc.graphio import is_vertex_cover, cover_cost
 
 
 def brute_force_mwvc(g: Graph) -> int:
@@ -102,7 +102,7 @@ def test_exactness_midsize_vs_oracle(oracle_dir):
     import subprocess
     import tempfile
 
-    from gnn_mwvc_tpu.graphio import write_metis
+    from gnn_mwvc.graphio import write_metis
 
     for seed in (1, 2, 3):
         g = small_random(40, 0.12, 200 + seed)
@@ -184,7 +184,7 @@ def test_local_search_forget_diversification():
 
     g = random_graph(800, 8, seed=13, wmax=50)
     s = CoreSolver(g.weights, g.edge_array(), num_rules=0)
-    from gnn_mwvc_tpu.core import CoreLocalSearch, greedy_cover
+    from gnn_mwvc.core import CoreLocalSearch, greedy_cover
 
     _cost, cover = greedy_cover(g.weights, g.edge_array())
     ls = CoreLocalSearch(g.weights, g.edge_array(), cover)
@@ -193,7 +193,25 @@ def test_local_search_forget_diversification():
     ls.forget(0.3)
     ls.search(20000, 1.0)
     assert ls.best_cost <= c1  # monotone best under continued search
-    from gnn_mwvc_tpu.graphio import is_vertex_cover
+    from gnn_mwvc.graphio import is_vertex_cover
 
     best = ls.best()
     assert is_vertex_cover(g, best)
+
+
+@pytest.mark.parametrize("frac_out", [0.3, 1.0])
+def test_local_search_initial_assignment_completed_to_cover(frac_out):
+    """An initial assignment with uncovered edges (peel decisions rewound
+    past a fold) is completed at construction: best() is a cover before any
+    search step, and a budget that ends before phase 2 still writes one."""
+    from tests.conftest import random_graph
+
+    g = random_graph(400, 6, seed=21, wmax=30)
+    rng = np.random.default_rng(0)
+    s0 = (rng.random(g.n) >= frac_out).astype(np.uint8)
+    ea = g.edge_array()
+    assert not (s0[ea[:, 0]] | s0[ea[:, 1]]).all()  # s0 is not a cover
+    ls = CoreLocalSearch(g.weights, ea, s0)
+    best = ls.best().astype(bool)
+    assert (best[ea[:, 0]] | best[ea[:, 1]]).all()
+    assert ls.best_cost == int(g.weights[best].sum())

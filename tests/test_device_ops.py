@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from gnn_mwvc_tpu.graph import DeviceGraph
-from gnn_mwvc_tpu.ops.rules import rule_masks, twin_groups
-from gnn_mwvc_tpu.ops.smallsolve import batched_small_mwvc, pack_instances
+from gnn_mwvc.graph import DeviceGraph
+from gnn_mwvc.ops.rules import rule_masks, twin_groups
+from gnn_mwvc.ops.smallsolve import batched_small_mwvc, pack_instances
 from tests.test_core import brute_force_mwvc, small_random
 
 
@@ -25,7 +25,7 @@ def test_batched_small_mwvc_parity():
             if rng.random() < 0.4
         ]
         instances.append((w.tolist(), edges))
-        from gnn_mwvc_tpu.graph import Graph
+        from gnn_mwvc.graph import Graph
 
         graphs.append(Graph(w, np.array(edges) if edges else None))
     adj, wts = pack_instances(instances)
@@ -57,7 +57,7 @@ def test_rule_masks_r1():
 
 def test_twin_hash_groups():
     # construct explicit twins: vertices 0 and 1 both adjacent to {2, 3}
-    from gnn_mwvc_tpu.graph import Graph
+    from gnn_mwvc.graph import Graph
 
     w = np.array([5, 7, 3, 4, 9])
     edges = np.array([(0, 2), (0, 3), (1, 2), (1, 3), (2, 4)])

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from gnn_mwvc_tpu.core import CoreSolver
-from gnn_mwvc_tpu.graphio import cover_cost, is_vertex_cover
-from gnn_mwvc_tpu.solver.device_reduce import device_reduce_prepass
+from gnn_mwvc.core import CoreSolver
+from gnn_mwvc.graphio import cover_cost, is_vertex_cover
+from gnn_mwvc.solver.device_reduce import device_reduce_prepass
 from tests.test_core import brute_force_mwvc, small_random
 
 
@@ -24,7 +24,7 @@ def test_prepass_preserves_exactness():
 
 def test_prepass_applies_on_structured_graph():
     # star-heavy graph: many r1 candidates (leaf-dominated centers)
-    from gnn_mwvc_tpu.graph import Graph
+    from gnn_mwvc.graph import Graph
 
     rng = np.random.default_rng(0)
     edges = []
@@ -48,7 +48,7 @@ def test_prepass_applies_on_structured_graph():
 
 
 def test_prepass_twin_folding():
-    from gnn_mwvc_tpu.graph import Graph
+    from gnn_mwvc.graph import Graph
 
     # many twin pairs: i and i+1 share neighborhoods {base, base+1}
     edges = []
@@ -99,7 +99,7 @@ def _true_r5_condition(g, u):
 def test_r5_candidates_exact_on_low_degree():
     import jax.numpy as jnp
 
-    from gnn_mwvc_tpu.ops.rules import build_ell8, r5_candidates
+    from gnn_mwvc.ops.rules import build_ell8, r5_candidates
 
     for seed in (0, 1, 2):
         g = small_random(24, 0.2, seed)
@@ -127,7 +127,7 @@ def test_r5_candidates_exact_on_low_degree():
 def test_r5_candidates_sound_under_truncation():
     import jax.numpy as jnp
 
-    from gnn_mwvc_tpu.ops.rules import build_ell8, r5_candidates
+    from gnn_mwvc.ops.rules import build_ell8, r5_candidates
 
     # hub-heavy graph: low-degree candidates whose neighbors have deg > 8
     for seed in (3, 4):
@@ -151,7 +151,7 @@ def test_r5_candidates_sound_under_truncation():
 def test_prepass_r5_preserves_exactness():
     # graphs engineered so r5 actually fires: heavy vertices whose light
     # neighborhoods are near-independent
-    from gnn_mwvc_tpu.graph import Graph
+    from gnn_mwvc.graph import Graph
 
     rng = np.random.default_rng(7)
     edges, n = [], 600

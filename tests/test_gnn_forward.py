@@ -5,16 +5,16 @@ import subprocess
 import numpy as np
 import pytest
 
-from gnn_mwvc_tpu.graph import DeviceGraph
-from gnn_mwvc_tpu.graphio import read_metis, write_metis
-from gnn_mwvc_tpu.models import (
+from gnn_mwvc.graph import DeviceGraph
+from gnn_mwvc.graphio import read_metis, write_metis
+from gnn_mwvc.models import (
     load_pretrained,
     loads_model,
     dumps_model,
     build_reference_arch,
     init_params,
 )
-from gnn_mwvc_tpu.models.gnn import Model, score_graph, forward
+from gnn_mwvc.models.gnn import Model, score_graph, forward
 
 
 def test_pretrained_shape():
@@ -43,7 +43,7 @@ def test_serialize_roundtrip():
 def test_graph_layer_quirk_w1(ex3_graph):
     """w=1: layout must be [agg, own, D, W/ws, NW/ws]."""
     import jax.numpy as jnp
-    from gnn_mwvc_tpu.models.gnn import graph_layer
+    from gnn_mwvc.models.gnn import graph_layer
 
     dg = DeviceGraph.from_graph(ex3_graph)
     ws = 20.0
@@ -67,7 +67,7 @@ def test_graph_layer_quirk_w1(ex3_graph):
 def test_graph_layer_quirk_w16():
     """w=16: D,W,NW overwrite copied features 1..3; top 3 columns zero."""
     import jax.numpy as jnp
-    from gnn_mwvc_tpu.models.gnn import graph_layer
+    from gnn_mwvc.models.gnn import graph_layer
     from tests.conftest import random_graph
 
     g = random_graph(50, 4, seed=9)
@@ -158,11 +158,11 @@ def test_init_params_shapes():
 
 
 def test_native_cpu_forward_parity(rnd_graph):
-    """The threaded C++ forward (core cpu_forward_native, used by the
-    warm-overlap / relay-bail stopgap rounds) matches the jax forward on a
+    """The threaded C++ forward (core cpu_forward_native, used for the
+    rounds below the device size threshold) matches the jax forward on a
     reduced kernel snapshot within fp noise, across thread counts."""
     import bench
-    from gnn_mwvc_tpu.core import CoreSolver, cpu_forward_native
+    from gnn_mwvc.core import CoreSolver, cpu_forward_native
 
     m = load_pretrained()
     g = bench.build_road_graph(60)
@@ -181,7 +181,7 @@ def test_native_cpu_forward_parity(rnd_graph):
 
 
 def test_native_cpu_forward_empty():
-    from gnn_mwvc_tpu.core import CoreSolver, cpu_forward_native
+    from gnn_mwvc.core import CoreSolver, cpu_forward_native
 
     m = load_pretrained()
     w = np.array([5, 3], np.uint32)

@@ -3,8 +3,8 @@ import io
 import numpy as np
 import pytest
 
-from gnn_mwvc_tpu.graph import Graph, DeviceGraph, bucket_size
-from gnn_mwvc_tpu.graphio import (
+from gnn_mwvc.graph import Graph, DeviceGraph, bucket_size
+from gnn_mwvc.graphio import (
     read_metis,
     write_metis,
     read_edge_graph,
@@ -109,7 +109,7 @@ def _mtx(banner, body):
 
 
 def test_mtx_pattern_symmetric():
-    from gnn_mwvc_tpu.graphio.edgelist import read_mtx_edges
+    from gnn_mwvc.graphio.edgelist import read_mtx_edges
     n, e = read_mtx_edges(_mtx(
         "%%MatrixMarket matrix coordinate pattern symmetric\n",
         "% comment\n4 4 3\n2 1\n3 1\n4 3\n"))
@@ -118,7 +118,7 @@ def test_mtx_pattern_symmetric():
 
 
 def test_mtx_real_general_values():
-    from gnn_mwvc_tpu.graphio.edgelist import read_mtx_edges
+    from gnn_mwvc.graphio.edgelist import read_mtx_edges
     n, e, v = read_mtx_edges(_mtx(
         "%%MatrixMarket matrix coordinate real general\n",
         "3 5 2\n1 2 0.5\n3 5 -2.25\n"), with_values=True)
@@ -128,7 +128,7 @@ def test_mtx_real_general_values():
 
 
 def test_mtx_integer_and_complex():
-    from gnn_mwvc_tpu.graphio.edgelist import read_mtx_edges
+    from gnn_mwvc.graphio.edgelist import read_mtx_edges
     n, e, v = read_mtx_edges(_mtx(
         "%%MatrixMarket matrix coordinate integer symmetric\n",
         "2 2 1\n2 1 7\n"), with_values=True)
@@ -140,7 +140,7 @@ def test_mtx_integer_and_complex():
 
 
 def test_mtx_skew_symmetric_rejects_diagonal():
-    from gnn_mwvc_tpu.graphio.edgelist import read_mtx_edges
+    from gnn_mwvc.graphio.edgelist import read_mtx_edges
     n, e = read_mtx_edges(_mtx(
         "%%MatrixMarket matrix coordinate pattern skew-symmetric\n",
         "3 3 1\n3 1\n"))
@@ -154,7 +154,7 @@ def test_mtx_skew_symmetric_rejects_diagonal():
 def test_mtx_array_real_general():
     """Dense array reading (round 4, closes the last mmio.c gap): nonzero
     entries in column-major order become edges."""
-    from gnn_mwvc_tpu.graphio.edgelist import read_mtx_edges
+    from gnn_mwvc.graphio.edgelist import read_mtx_edges
     # 2x2 column-major [[1,3],[2,0]] -> nonzeros (1,1),(2,1),(1,2)
     n, e, v = read_mtx_edges(_mtx(
         "%%MatrixMarket matrix array real general\n",
@@ -165,7 +165,7 @@ def test_mtx_array_real_general():
 
 
 def test_mtx_array_symmetric_lower_triangle():
-    from gnn_mwvc_tpu.graphio.edgelist import read_mtx_edges
+    from gnn_mwvc.graphio.edgelist import read_mtx_edges
     # 3x3 symmetric, lower triangle col-major: (1,1),(2,1),(3,1),(2,2),
     # (3,2),(3,3); zero out (1,1),(3,2)
     n, e = read_mtx_edges(_mtx(
@@ -176,7 +176,7 @@ def test_mtx_array_symmetric_lower_triangle():
 
 
 def test_mtx_array_skew_and_complex():
-    from gnn_mwvc_tpu.graphio.edgelist import read_mtx_edges
+    from gnn_mwvc.graphio.edgelist import read_mtx_edges
     # skew 3x3: strict lower triangle col-major (2,1),(3,1),(3,2)
     n, e = read_mtx_edges(_mtx(
         "%%MatrixMarket matrix array real skew-symmetric\n",
@@ -192,7 +192,7 @@ def test_mtx_array_skew_and_complex():
 
 
 def test_mtx_array_errors():
-    from gnn_mwvc_tpu.graphio.edgelist import read_mtx_edges
+    from gnn_mwvc.graphio.edgelist import read_mtx_edges
     with pytest.raises(ValueError, match="pattern"):
         read_mtx_edges(_mtx(
             "%%MatrixMarket matrix array pattern general\n", "2 2\n"))
@@ -208,13 +208,13 @@ def test_mtx_array_errors():
 def test_mtx_bannerless_pattern_compat():
     """Files without a banner stay readable (the reference pipeline's own
     reader never looks at the banner, gen_weights.cpp:33-37)."""
-    from gnn_mwvc_tpu.graphio.edgelist import read_mtx_edges
+    from gnn_mwvc.graphio.edgelist import read_mtx_edges
     n, e = read_mtx_edges(_mtx("", "% c\n3 3 2\n1 2\n2 3\n"))
     assert n == 3 and len(e) == 2
 
 
 def test_mtx_malformed_errors():
-    from gnn_mwvc_tpu.graphio.edgelist import read_mtx_edges
+    from gnn_mwvc.graphio.edgelist import read_mtx_edges
     with pytest.raises(ValueError, match="out of range"):
         read_mtx_edges(_mtx(
             "%%MatrixMarket matrix coordinate pattern general\n",

@@ -8,14 +8,14 @@ import tempfile
 import numpy as np
 import pytest
 
-from gnn_mwvc_tpu.graphio import (
+from gnn_mwvc.graphio import (
     cover_cost,
     is_vertex_cover,
     read_solution,
     write_metis,
 )
-from gnn_mwvc_tpu.solver import solve
-from gnn_mwvc_tpu.solver.pipeline import confidence_order
+from gnn_mwvc.solver import solve
+from gnn_mwvc.solver.pipeline import confidence_order
 
 
 def test_confidence_order_semantics():
@@ -68,7 +68,7 @@ def test_solve_random_valid_and_competitive(rnd_graph, oracle_dir, n, deg,
 
 def test_solve_quick_mode(rnd_graph):
     from tests.conftest import random_graph
-    from gnn_mwvc_tpu.solver.quick import QuickScorer
+    from gnn_mwvc.solver.quick import QuickScorer
 
     g = random_graph(600, 8, seed=6)
     res = solve(g, time_limit=2.0, scorer=QuickScorer())
@@ -86,7 +86,7 @@ def test_cli_contract(tmp_path, rnd_graph):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH="/root/repo:" + os.environ.get("PYTHONPATH", ""))
     out = subprocess.run(
-        [sys.executable, "-m", "gnn_mwvc_tpu.solver.cli", str(gpath),
+        [sys.executable, "-m", "gnn_mwvc.solver.cli", str(gpath),
          str(spath), "2", "-1", "0"],
         capture_output=True, text=True, timeout=300, env=env,
     )
@@ -105,8 +105,8 @@ def test_cli_contract(tmp_path, rnd_graph):
 def test_confidence_order_native_matches_numpy():
     import numpy as np
 
-    from gnn_mwvc_tpu.core import confidence_order_native
-    from gnn_mwvc_tpu.solver.pipeline import CONF_EPS
+    from gnn_mwvc.core import confidence_order_native
+    from gnn_mwvc.solver.pipeline import CONF_EPS
 
     rng = np.random.default_rng(11)
     n = 30000
@@ -126,8 +126,8 @@ def test_confidence_order_native_matches_numpy():
 def test_batch_cli(tmp_path):
     import numpy as np
 
-    from gnn_mwvc_tpu.graphio import write_metis
-    from gnn_mwvc_tpu.solver.batch import main as batch_main
+    from gnn_mwvc.graphio import write_metis
+    from gnn_mwvc.solver.batch import main as batch_main
     from tests.conftest import random_graph
 
     paths = []

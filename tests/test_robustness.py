@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from gnn_mwvc_tpu.graph import Graph
-from gnn_mwvc_tpu.graphio import cover_cost, is_vertex_cover
-from gnn_mwvc_tpu.solver import solve
+from gnn_mwvc.graph import Graph
+from gnn_mwvc.graphio import cover_cost, is_vertex_cover
+from gnn_mwvc.solver import solve
 from tests.test_core import brute_force_mwvc, small_random
 
 

@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from gnn_mwvc_tpu.graph import Graph
-from gnn_mwvc_tpu.graphio import cover_cost, is_vertex_cover, write_edge_graph
-from gnn_mwvc_tpu.train import (
+from gnn_mwvc.graph import Graph
+from gnn_mwvc.graphio import cover_cost, is_vertex_cover, write_edge_graph
+from gnn_mwvc.train import (
     TrainConfig,
     gen_reduced_graph,
     load_training_set,
@@ -21,7 +21,7 @@ from gnn_mwvc_tpu.train import (
 def _labeled_samples(k=6, n=60, seed=0):
     """Synthetic task: label = optimal-ish cover membership via weights."""
     from tests.conftest import random_graph
-    from gnn_mwvc_tpu.solver import solve
+    from gnn_mwvc.solver import solve
 
     samples = []
     for i in range(k):
@@ -57,7 +57,7 @@ def test_train_metrics_fields():
 
 
 def test_trained_model_serializes(tmp_path):
-    from gnn_mwvc_tpu.models import dumps_model, loads_model
+    from gnn_mwvc.models import dumps_model, loads_model
 
     samples = _labeled_samples(4)
     model, _ = train(samples, TrainConfig(epochs=0, log=False))
@@ -99,7 +99,7 @@ def test_load_training_set(tmp_path):
 
 def test_ablation_grid():
     from tests.conftest import random_graph
-    from gnn_mwvc_tpu.solver.ablation import ablation_csv, run_ablation
+    from gnn_mwvc.solver.ablation import ablation_csv, run_ablation
 
     g = random_graph(150, 6, seed=21, wmax=20)
     results = run_ablation(g)
@@ -115,7 +115,7 @@ def test_ablation_grid():
 
 def test_approximation_solver():
     from tests.conftest import random_graph
-    from gnn_mwvc_tpu.solver.approximation import approximate_solve
+    from gnn_mwvc.solver.approximation import approximate_solve
 
     g = random_graph(500, 8, seed=31, wmax=100)
     vc, cost, dt = approximate_solve(g)
@@ -127,7 +127,7 @@ def test_approximation_solver():
 
 def test_greedy_and_constructions():
     from tests.conftest import random_graph
-    from gnn_mwvc_tpu.core import approx_cover, greedy_cover
+    from gnn_mwvc.core import approx_cover, greedy_cover
 
     g = random_graph(300, 8, seed=41)
     for fn in (approx_cover, greedy_cover):
@@ -142,13 +142,13 @@ def test_full_data_prep_to_train_to_solve_chain(tmp_path):
     freshly trained checkpoint."""
     import numpy as np
 
-    from gnn_mwvc_tpu.graphio import (cover_cost, is_vertex_cover,
+    from gnn_mwvc.graphio import (cover_cost, is_vertex_cover,
                                       write_edge_graph)
-    from gnn_mwvc_tpu.models import load_model
-    from gnn_mwvc_tpu.solver import solve
-    from gnn_mwvc_tpu.solver.pipeline import GnnScorer
-    from gnn_mwvc_tpu.train.cli import main as train_main
-    from gnn_mwvc_tpu.train.data import gen_reduced_graph
+    from gnn_mwvc.models import load_model
+    from gnn_mwvc.solver import solve
+    from gnn_mwvc.solver.pipeline import GnnScorer
+    from gnn_mwvc.train.cli import main as train_main
+    from gnn_mwvc.train.data import gen_reduced_graph
     from tests.conftest import random_graph
 
     gdir = tmp_path / "graphs"

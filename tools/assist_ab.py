@@ -9,7 +9,7 @@ Each variant replays the production phase-2 loop (step-size schedule, ILS
 stall/kick policy) from the same initial cover for --time seconds.
 
 Usage:
-  python tools/assist_ab.py /tmp/kernel_road900.npz --time 300 --seeds 1,2
+  python tools/assist_ab.py kernel_road900.npz --time 300 --seeds 1,2
 """
 
 from __future__ import annotations
@@ -26,9 +26,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def run_variant(kern, variant, budget, seed, assist_batch=1024, rmax=14):
-    from gnn_mwvc_tpu.core import CoreLocalSearch
-    from gnn_mwvc_tpu.solver.device_assist import DeviceAssist
-    from gnn_mwvc_tpu.solver.pipeline import pick_devices
+    from gnn_mwvc.core import CoreLocalSearch
+    from gnn_mwvc.solver.device_assist import DeviceAssist
+    from gnn_mwvc.solver.pipeline import pick_devices
 
     ls = CoreLocalSearch(kern["weights"], kern["edges"], kern["s0"])
     prob = kern["prob"]
@@ -36,8 +36,8 @@ def run_variant(kern, variant, budget, seed, assist_batch=1024, rmax=14):
 
     assist = None
     if variant in ("regions", "full"):
-        _cpu, _tpu = pick_devices()
-        assist = DeviceAssist(prob, device=_tpu or _cpu, batch=assist_batch,
+        cpu, accel = pick_devices()
+        assist = DeviceAssist(prob, device=accel or cpu, batch=assist_batch,
                               rmax=rmax, seed=seed)
     guided = variant in ("guided", "full")
 
@@ -94,18 +94,10 @@ def main(argv=None):
     ap.add_argument("--variants", default="plain,guided,regions,full")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--rmax", type=int, default=14,
-                    help="region size cap; >16 uses the pallas 2^20 "
-                         "meet-in-the-middle kernel (width-20 extraction)")
-    ap.add_argument("--out", default="/tmp/assist_ab.json")
-    ap.add_argument("--probe", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="relay-health gate before the timed A/B "
-                         "(tools/relay_probe.py)")
-    ap.add_argument("--force", action="store_true")
+                    help="region size cap; >16 solves 2^20 regions "
+                         "(width-20 extraction)")
+    ap.add_argument("--out", default="chiprun_out/assist_ab.json")
     args = ap.parse_args(argv)
-
-    from tools.relay_probe import gate
-    probe = gate(force=args.force, skip=not args.probe)
 
     kern = dict(np.load(args.kernel))
     init = int(kern["initial_cost"])
@@ -118,8 +110,8 @@ def main(argv=None):
             rows.append(r)
             print(json.dumps(r), flush=True)
     with open(args.out, "w") as f:
-        json.dump({"kernel": args.kernel, "time": args.time, "rows": rows,
-                   "relay_probe": probe}, f, indent=1)
+        json.dump({"kernel": args.kernel, "time": args.time, "rows": rows},
+                  f, indent=1)
 
 
 if __name__ == "__main__":

@@ -33,25 +33,12 @@ def main(argv=None):
                          "accelerator is present — the unified 'auto' "
                          "default; --no-device-assist reverts to the "
                          "round-2 ILS)")
-    ap.add_argument("--probe", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="relay-health probe before the timed run "
-                         "(tools/relay_probe.py); refuses a sick window")
-    ap.add_argument("--force", action="store_true",
-                    help="proceed even if the relay probe is unhealthy")
-    ap.add_argument("--probe-ms-max", type=float, default=None,
-                    help="stricter probe threshold (ms) for instances "
-                         "whose phase 1 is relay-throughput-bound")
     args = ap.parse_args(argv)
 
-    from tools.relay_probe import ITER_MS_MAX, gate
-    probe = gate(force=args.force, skip=not args.probe,
-                 iter_ms_max=args.probe_ms_max or ITER_MS_MAX)
-
     from bench import build_road_graph
-    from gnn_mwvc_tpu.graphio import cover_cost, is_vertex_cover
-    from gnn_mwvc_tpu.solver import solve
-    from gnn_mwvc_tpu.solver.static_score import StickyGnnScorer
+    from gnn_mwvc.graphio import cover_cost, is_vertex_cover
+    from gnn_mwvc.solver import solve
+    from gnn_mwvc.solver.static_score import StickyGnnScorer
 
     assert args.instance.startswith("road")
     side = int(args.instance[4:])
@@ -78,12 +65,12 @@ def main(argv=None):
         "scorer": {k: v for k, v in scorer.stats.items()},
         "device_assist": res.assist_stats is not None,
         "assist": res.assist_stats,
-        "relay_probe": probe,
     }
     print(f"{args.instance},{res.cost},{res.best_seen},"
           f"{res.time_to_best:.1f}", flush=True)
     print(json.dumps(rec), flush=True)
-    out = args.out or f"/tmp/canonical_{args.instance}_{args.tag}.json"
+    out = args.out or f"chiprun_out/canonical_{args.instance}_{args.tag}.json"
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     with open(out, "w") as f:
         json.dump(rec, f)
 

@@ -26,7 +26,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from bench import build_road_graph
-    from gnn_mwvc_tpu.graphio import write_metis
+    from gnn_mwvc.graphio import write_metis
 
     assert args.instance.startswith("road")
     side = int(args.instance[4:])

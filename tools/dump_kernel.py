@@ -3,7 +3,7 @@ experiments (tools/assist_ab.py): runs the production phase 1, then saves
 the kernel CSR-as-edges, weights, initial cover, per-vertex model scores,
 and the initial reduction cost to an npz.
 
-Usage: python tools/dump_kernel.py road900 [--out /tmp/kernel_road900.npz]
+Usage: python tools/dump_kernel.py road900 [--out kernel_road900.npz]
 """
 
 from __future__ import annotations
@@ -25,9 +25,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from bench import build_road_graph
-    from gnn_mwvc_tpu.core import CoreSolver, cluster_order
-    from gnn_mwvc_tpu.solver.pipeline import gnn_peel
-    from gnn_mwvc_tpu.solver.static_score import StickyGnnScorer
+    from gnn_mwvc.core import CoreSolver, cluster_order
+    from gnn_mwvc.solver.pipeline import gnn_peel
+    from gnn_mwvc.solver.static_score import StickyGnnScorer
 
     assert args.instance.startswith("road")
     g = build_road_graph(int(args.instance[4:]))
@@ -58,7 +58,7 @@ def main(argv=None):
     ok = (idx < len(sid)) & (sid[np.minimum(idx, len(sid) - 1)] == ids_k)
     prob_local[order[idx[ok]]] = np.asarray(prob_k)[ok]
 
-    out = args.out or f"/tmp/kernel_{args.instance}.npz"
+    out = args.out or f"kernel_{args.instance}.npz"
     np.savez_compressed(
         out, weights=snap.weights, edges=kedges.astype(np.uint32), s0=s0,
         prob=prob_local, initial_cost=np.int64(initial_cost),

@@ -13,7 +13,7 @@ import re
 
 SRC = "/root/reference/src/GNN_VC.cpp"
 DST = os.path.join(
-    os.path.dirname(__file__), "..", "gnn_mwvc_tpu", "models", "weights",
+    os.path.dirname(__file__), "..", "gnn_mwvc", "models", "weights",
     "gnn_vc_sea2022.txt",
 )
 

@@ -4,8 +4,8 @@ Runs GNN-guided kernelization (pipeline phase 1) once, then writes the
 local-search input — kernel weights, unique edges, initial cover, and the
 initial reduction cost — to an .npz plus a flat binary the reference-LS
 oracle (tests/oracle/ls_oracle.cpp) can read.  This lets local-search
-experiments iterate on the *identical* kernel without re-running the TPU
-scoring phase.
+experiments iterate on the *identical* kernel without re-running the
+device scoring phase.
 
 Binary layout (little-endian):
     8s  magic  b"MWVCKRN1"
@@ -71,9 +71,9 @@ def main(argv=None):
     ap.add_argument("--reorder", action="store_true", default=True)
     args = ap.parse_args(argv)
 
-    from gnn_mwvc_tpu.core import CoreSolver, cluster_order
-    from gnn_mwvc_tpu.solver.pipeline import gnn_peel
-    from gnn_mwvc_tpu.solver.static_score import StickyGnnScorer
+    from gnn_mwvc.core import CoreSolver, cluster_order
+    from gnn_mwvc.solver.pipeline import gnn_peel
+    from gnn_mwvc.solver.static_score import StickyGnnScorer
 
     g = build_instance(args.instance)
     if args.reorder:

@@ -43,7 +43,7 @@ def main(argv=None):
 
     import numpy as np
 
-    from gnn_mwvc_tpu.core import CoreLocalSearch
+    from gnn_mwvc.core import CoreLocalSearch
 
     w, eu, ev, s0, c0 = read_kernel(args.kernel)
     ls = CoreLocalSearch(w, np.stack([eu, ev], 1), s0)

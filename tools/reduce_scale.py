@@ -1,10 +1,8 @@
-"""Decisive device-vs-host reduction experiment (VERDICT round-1 item 5).
+"""Decisive device-vs-host reduction experiment.
 
-Round 1 measured the host worklist engine beating the device mask prepass on
-road900 (3.3 M edges) and on a star/twin-heavy 900 k-node instance.  The open
-question: does O(E) device mask evaluation amortize on instances 10-50x
-larger (50-200 M edges), where one mask round costs a few ms of TPU time but
-the host pays tens of seconds?
+The question: does O(E) device mask evaluation amortize against the host
+worklist engine on instances of 50-200 M edges, where the host pays tens of
+seconds?
 
 Measures, on a synthetic road-like instance of the requested scale:
   * host: CoreSolver build + full worklist reduce() to the kernel;
@@ -30,7 +28,7 @@ def run(side, with_device):
     import numpy as np  # noqa: F401
 
     from bench import build_road_graph
-    from gnn_mwvc_tpu.core import CoreSolver
+    from gnn_mwvc.core import CoreSolver
 
     g = build_road_graph(side)
     e = len(g.indices) // 2
@@ -41,7 +39,7 @@ def run(side, with_device):
     rec = {"n": int(g.n), "e": int(e), "t_build": round(t_build, 2)}
     t0 = time.perf_counter()
     if with_device:
-        from gnn_mwvc_tpu.solver.device_reduce import device_reduce_prepass
+        from gnn_mwvc.solver.device_reduce import device_reduce_prepass
 
         stats = device_reduce_prepass(core)
         rec["prepass"] = stats

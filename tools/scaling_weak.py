@@ -1,12 +1,11 @@
-"""Round-3 multi-chip scaling evidence (VERDICT items 4 + 5): shard a
+"""Multi-device scaling evidence: shard a
 multi-million-edge road instance AND a locality-free ER instance over a
 1/2/4/8-device CPU mesh; record per-config forward wall time, edges/s,
 measured halo bytes per chip, partition-build wall time, and single-device
 parity.
 
 The CPU mesh measures SCALING SHAPE (collective overhead, halo-vs-compute
-ratio), not absolute TPU throughput; BASELINE.md carries the roofline
-projection to real chips next to these numbers.
+ratio), not device throughput.
 
 Writes /tmp/scaling_weak.json.
 """
@@ -33,10 +32,10 @@ def run_instance(name, g, parts_list, results, aggregation="scatter"):
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from gnn_mwvc_tpu.graph import DeviceGraph
-    from gnn_mwvc_tpu.models import load_pretrained
-    from gnn_mwvc_tpu.models.gnn import make_scorer
-    from gnn_mwvc_tpu.parallel.sharded import (
+    from gnn_mwvc.graph import DeviceGraph
+    from gnn_mwvc.models import load_pretrained
+    from gnn_mwvc.models.gnn import make_scorer
+    from gnn_mwvc.parallel.sharded import (
         make_sharded_forward, partition_device_graph)
 
     model = load_pretrained()
@@ -101,7 +100,7 @@ def main():
     jax.config.update("jax_platforms", "cpu")
 
     from bench import build_road_graph
-    from gnn_mwvc_tpu.core import cluster_order
+    from gnn_mwvc.core import cluster_order
     from tests.conftest import random_graph
 
     results = {}

@@ -1,12 +1,11 @@
-"""Canonical-protocol CPU-mesh solve parity (VERDICT r3 weak #5 close-out).
+"""Canonical-protocol CPU-mesh solve parity.
 
 Runs the full solve pipeline on a road-class instance with phase-1 scoring
 routed through ShardedGnnScorer on a P-device virtual CPU mesh, against
 the single-device CPU scorer, and asserts COVER IDENTITY on the
 deterministic phase-1 output (time_limit=0: reduce -> score -> peel ->
 unfold; phase 2's local search is scorer-independent).  Records phase-1
-wall time for both paths plus the halo statistics that feed the v5e-16
-projection in BASELINE.md.
+wall time for both paths plus the halo statistics.
 
 Usage:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
@@ -38,10 +37,10 @@ def main(argv=None):
     jax.config.update("jax_platforms", "cpu")
 
     from bench import build_road_graph
-    from gnn_mwvc_tpu.graphio import cover_cost, is_vertex_cover
-    from gnn_mwvc_tpu.parallel import make_mesh
-    from gnn_mwvc_tpu.solver import ShardedGnnScorer, solve
-    from gnn_mwvc_tpu.solver.pipeline import GnnScorer
+    from gnn_mwvc.graphio import cover_cost, is_vertex_cover
+    from gnn_mwvc.parallel import make_mesh
+    from gnn_mwvc.solver import ShardedGnnScorer, solve
+    from gnn_mwvc.solver.pipeline import GnnScorer
 
     assert args.instance.startswith("road")
     g = build_road_graph(int(args.instance[4:]))
@@ -62,7 +61,7 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     res_1 = solve(g, time_limit=0.0, reorder=True,
-                  scorer=GnnScorer(tpu_min_edges=1 << 62),
+                  scorer=GnnScorer(device_min_edges=1 << 62),
                   device_assist=False)
     t_single = time.perf_counter() - t0
 

@@ -41,7 +41,7 @@ def powerlaw_graph(n, m_attach, seed, wmax=1000):
         targets = [repeated[i] for i in idx]
     e = np.unique(np.sort(np.array(edges), axis=1), axis=0)
     e = e[e[:, 0] != e[:, 1]]
-    from gnn_mwvc_tpu.graph import Graph
+    from gnn_mwvc.graph import Graph
 
     return Graph(rng.integers(1, wmax + 1, size=n), e)
 
@@ -86,8 +86,8 @@ def main(argv=None):
     ap.add_argument("--classes", default="er,pl,road")
     args = ap.parse_args(argv)
 
-    from gnn_mwvc_tpu.graphio import cover_cost, is_vertex_cover, write_metis
-    from gnn_mwvc_tpu.solver import solve
+    from gnn_mwvc.graphio import cover_cost, is_vertex_cover, write_metis
+    from gnn_mwvc.solver import solve
 
     rows = []
     for name, mk in instances(args.classes.split(",")):

@@ -1,4 +1,4 @@
-"""Quality-validate the training pipeline (VERDICT round-1 item 7).
+"""Quality-validate the training pipeline.
 
 Runs the full SURVEY §3.5 chain at corpus scale — random-weight instances
 -> 3-rule kernels -> near-optimal labels from our own solver -> gnn-train —
@@ -10,8 +10,8 @@ weights end-to-end on held-out instances:
     for exactly this per-vertex in-cover probability), and
   * final cover at a short equal budget.
 
-Everything runs on the CPU backend (small graphs; avoids per-shape TPU
-compiles).  Writes a JSON report; the headline lands in BASELINE.md.
+Everything runs on the CPU backend (small graphs; avoids per-shape device
+compiles).  Writes a JSON report.
 
 Usage:
     taskset -c 1 python tools/train_quality.py [--epochs 120]
@@ -45,7 +45,7 @@ def corpus(rng):
     for i in range(10):
         graphs.append((f"er{i}", random_graph(
             2000 + 900 * i, 8 + (i % 4) * 2, seed=100 + i, wmax=1000)))
-    # round 3 (VERDICT r2 item 8): power-law doubled to 12 samples spanning
+    # power-law doubled to 12 samples spanning
     # up to the held-out pl15k scale — the one class where the from-scratch
     # model measurably lagged (+0.146 % final on pl15k, round 2)
     for i in range(16):
@@ -80,12 +80,12 @@ def main(argv=None):
     ap.add_argument("--workdir", default="/tmp/train_quality")
     args = ap.parse_args(argv)
 
-    from gnn_mwvc_tpu.graphio import write_edge_graph
-    from gnn_mwvc_tpu.models import load_model, load_pretrained
-    from gnn_mwvc_tpu.solver import solve
-    from gnn_mwvc_tpu.solver.pipeline import GnnScorer
-    from gnn_mwvc_tpu.train.cli import main as train_main
-    from gnn_mwvc_tpu.train.data import gen_reduced_graph
+    from gnn_mwvc.graphio import write_edge_graph
+    from gnn_mwvc.models import load_model, load_pretrained
+    from gnn_mwvc.solver import solve
+    from gnn_mwvc.solver.pipeline import GnnScorer
+    from gnn_mwvc.train.cli import main as train_main
+    from gnn_mwvc.train.data import gen_reduced_graph
 
     rng = np.random.default_rng(0)
     gdir = os.path.join(args.workdir, "graphs")
