@@ -9,7 +9,8 @@ and builds the C++ core.  Phases on one card:
 
 * solve  — ``solve(g, time_limit=T)`` with the default sticky scorer and the
   device assist: a valid cover whose recomputed cost equals ``res.cost``,
-  device-scored peel rounds > 0, region batches solved on the GPU > 0;
+  device-scored peel rounds > 0, region batches solved on the GPU > 0, the
+  phase-2 kernel re-score landed (its device and seconds are printed);
 * cli    — the ``gnn-vc`` entry (``gnn_mwvc.solver.cli.main``, as
   ``gnn-vc <graph> <sol> T -1 0 --json``) on the same file, in this process:
   a valid cover of the cost it reports;
@@ -102,7 +103,9 @@ def phase_solve(g, time_limit):
         f"assist_batches={ast.get('batches', 0)} "
         f"assist_platform={ast.get('platform')} "
         f"assist_regions={ast.get('regions', 0)} "
-        f"assist_patches={ast.get('patches', 0)} cost={res.cost} "
+        f"assist_patches={ast.get('patches', 0)} "
+        f"kernel_score_platform={ast.get('kernel_score_platform')} "
+        f"kernel_score_s={ast.get('t_kernel_score_s')} cost={res.cost} "
         f"kernel={res.kernel_size} ls_steps={res.ls_steps}")
     log(f"solve: scorer_stats={json.dumps(st)}")
     log(f"solve: assist_stats={json.dumps(ast)}")
@@ -110,6 +113,8 @@ def phase_solve(g, time_limit):
         "no device-scored peel round"
     assert ast.get("batches", 0) > 0 and ast.get("platform") == "gpu", \
         "no region batch solved on the GPU"
+    assert ast.get("t_kernel_score_s") is not None, \
+        "the phase-2 kernel re-score did not land"
     return res
 
 

@@ -588,8 +588,8 @@ def cpu_forward_native(snap, model, weight_scale, n_threads=2):
     """Native threaded CPU forward over a kernel snapshot (capi.cpp
     mwvc_cpu_forward / cpuforward.hpp): models/gnn.py semantics with
     compat=True + x_is_node_weights=True, zero per-round build cost —
-    used for the rounds below the device size threshold and the phase-2
-    kernel re-score."""
+    used for every snapshot below the device size threshold (peel rounds
+    and the phase-2 kernel re-score alike)."""
     lib = _load()
     n = int(snap.n)
     out = np.empty(max(n, 1), np.float32)

@@ -68,14 +68,6 @@ class LocalSearch {
         }
         part.assign(adj_off.begin(), adj_off.end() - 1);
 
-        // An initial assignment that leaves an edge uncovered (peel
-        // decisions rewound past a fold) is completed first — the lighter
-        // endpoint joins — so best_s is a cover before any search step.
-        // A cover s0 (the reference's assumption) is left untouched.
-        for (u32 i = 0; i < m; ++i)
-            if (!in_s[eu[i]] && !in_s[ev[i]])
-                in_s[wt[eu[i]] <= wt[ev[i]] ? eu[i] : ev[i]] = 1;
-
         cost = 0;
         for (u32 u = 0; u < n; ++u)
             if (in_s[u])

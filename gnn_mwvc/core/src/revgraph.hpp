@@ -14,16 +14,18 @@
 //    and makes org_label == node id;
 //  * undo is LIFO: most actions are reversed by re-walking the same
 //    (untouched) source lists in reverse order; only neighborhood folds log
-//    an explicit op sequence (they interleave unlinks with gadget-edge
+//    an explicit op sequence (their unlinks, followed by gadget-edge
 //    appends);
 //  * NW and cost are 64-bit (the reference's uint32 NW can overflow on
 //    massive graphs).
 //
 // Sorted-order invariant: entries in each list are linked in ascending
 // neighbor id; fold gadget nodes get the largest id so tail-append keeps
-// order (the reference relies on the same fact, reduction_graph.hpp:376-396).
+// order in their neighbors' lists (the reference relies on the same fact,
+// reduction_graph.hpp:376-396), and a gadget's own list is appended sorted.
 
 #pragma once
+#include <algorithm>
 #include <cassert>
 #include <cstdint>
 #include <vector>
@@ -48,10 +50,6 @@ struct LogEntry {
     u64 data_off, data_len;  // NbhdFold op sequence in data buffer
 };
 
-// NbhdFold op word: low 31 bits = arena index of the unlinked w-side entry;
-// high bit set => a gadget edge (w, z) was appended right after this unlink.
-constexpr u32 FOLD_GADGET_FLAG = 0x80000000u;
-
 class RevGraph {
   public:
     struct Entry {
@@ -70,7 +68,8 @@ class RevGraph {
     u32 stamp_epoch = 0;
 
     std::vector<LogEntry> log;
-    std::vector<u32> log_data;
+    std::vector<u32> log_data;  // NbhdFold: arena indices of unlinked entries
+    std::vector<u32> fold_scratch;
 
     u32 n_active = 0;
 
@@ -297,6 +296,11 @@ class RevGraph {
     // Independent-neighborhood fold: remove u and N(u), add gadget node z of
     // weight NW(u) - W(u) adjacent to all active second neighbors
     // (reference: reduction_graph.hpp:335-397).  Returns z.
+    //
+    // The second neighbors are found in discovery order (per neighbor of u,
+    // ascending) and appended to z's list after sorting, so z's own list
+    // keeps the sorted-order invariant the merge predicates rely on
+    // (is_twin, is_dominating, has_independent_neighbors).
     u32 fold_neighborhood(u32 u) {
         assert(active[u]);
         u32 z = (u32)head.size();
@@ -322,6 +326,7 @@ class RevGraph {
             n_active--;
         }
         u32 mark = new_stamp();
+        fold_scratch.clear();
         for (u32 e = first(u); !at_end(u, e); e = arena[e].next) {
             u32 v = arena[e].nbr;
             for (u32 f = first(v); !at_end(v, f); f = arena[f].next) {
@@ -332,16 +337,18 @@ class RevGraph {
                 unlink(g);
                 deg[x]--;
                 nw[x] -= w[v];
-                u32 word = g;
+                log_data.push_back(g);
                 if (stamp[x] != mark) {
                     stamp[x] = mark;
-                    word |= FOLD_GADGET_FLAG;
-                    append_edge_tail(x, z);
-                    nw[z] += w[x];
-                    nw[x] += zw;
+                    fold_scratch.push_back(x);
                 }
-                log_data.push_back(word);
             }
+        }
+        std::sort(fold_scratch.begin(), fold_scratch.end());
+        for (u32 x : fold_scratch) {
+            append_edge_tail(x, z);
+            nw[z] += w[x];
+            nw[x] += zw;
         }
         log.push_back({Act::NbhdFold, u, z, off, log_data.size() - off});
         return z;
@@ -350,25 +357,25 @@ class RevGraph {
     void undo_fold_neighborhood(const LogEntry &le) {
         u32 u = le.u, z = le.v;
         u64 zw = w[z];
+        // the gadget edges were appended after every unlink and are the
+        // last 2*deg(z) arena slots (LIFO): drop them first, newest first
+        while (deg[z] > 0) {
+            u32 ez = (u32)arena.size() - 2;  // z-side entry
+            u32 ex = ez + 1;                  // x-side entry
+            u32 x = arena[ez].nbr;
+            unlink(ex);
+            unlink(ez);
+            arena.pop_back();
+            arena.pop_back();
+            deg[x]--;
+            deg[z]--;
+            nw[x] -= zw;
+            nw[z] -= w[x];
+        }
         for (u64 i = le.data_off + le.data_len; i-- > le.data_off;) {
-            u32 word = log_data[i];
-            u32 g = word & ~FOLD_GADGET_FLAG;
+            u32 g = log_data[i];
             u32 v = arena[g].nbr;
             u32 x = arena[arena[g].mirror].nbr;
-            if (word & FOLD_GADGET_FLAG) {
-                // remove the gadget edge appended right after this unlink:
-                // it occupies the last two arena slots (LIFO).
-                u32 ez = (u32)arena.size() - 2;  // z-side entry
-                u32 ex = ez + 1;                  // x-side entry
-                unlink(ex);
-                unlink(ez);
-                arena.pop_back();
-                arena.pop_back();
-                deg[x]--;
-                deg[z]--;
-                nw[x] -= zw;
-                nw[z] -= w[x];
-            }
             relink(g);
             deg[x]++;
             nw[x] += w[v];
@@ -381,7 +388,6 @@ class RevGraph {
         active[u] = 1;
         n_active++;
         // destroy z
-        assert(deg[z] == 0);
         n_active--;  // z was active
         arena.pop_back();  // z tail sentinel
         arena.pop_back();  // z head sentinel

@@ -77,14 +77,19 @@ class GnnScorer:
         self._fn_accel = make_scorer(self.model, compat=compat)
         self._fn_cpu = make_scorer(self.model, compat=compat)
 
+    def device_for(self, n_edges: int):
+        """The device that scores a snapshot of n_edges directed edges."""
+        if self._accel_dev is not None and n_edges >= self.device_min_edges:
+            return self._accel_dev
+        return self._cpu_dev
+
     def __call__(self, snap, weight_scale: float) -> np.ndarray:
         """snap: core Snapshot; returns scores aligned with snapshot rows."""
         import jax
 
         e = int(snap.indptr[-1]) if snap.n else 0
-        use_accel = (
-            self._accel_dev is not None and e >= self.device_min_edges
-        )
+        dev = self.device_for(e)
+        use_accel = dev.platform != "cpu"
         if not use_accel and self.native and snap.n:
             try:
                 from gnn_mwvc.core import cpu_forward_native
@@ -101,7 +106,6 @@ class GnnScorer:
             # (graph.py); CPU: plain scatter segment-sum compiles fast.
             aggregation="auto" if use_accel else "scatter",
         )
-        dev = self._accel_dev if use_accel else self._cpu_dev
         with jax.default_device(dev):
             dg_dev = jax.device_put(dg, dev)
             fn = self._fn_accel if use_accel else self._fn_cpu
@@ -130,6 +134,26 @@ def confidence_order(prob: np.ndarray, weights: np.ndarray,
     k_w = np.where(incl, w, -w)
     k_d = np.where(incl, -d, d)
     return np.lexsort((k_d, k_w, incl.astype(np.int8), bucket))
+
+
+def kernel_state(core: CoreSolver):
+    """Phase-2 input after ``core.unfold(t_kernel)``: the kernel snapshot,
+    its unique edges (compacted ids, u < v) and the peel decisions over it
+    as the initial cover.  The unfolded decisions must cover every kernel
+    edge; a fold that broke that would surface here, not in a later
+    written cover."""
+    snap = core.snapshot()
+    rows = np.repeat(
+        np.arange(snap.n, dtype=np.int64), np.diff(snap.indptr.astype(np.int64))
+    )
+    keep = rows < snap.indices
+    kedges = np.stack([rows[keep], snap.indices[keep]], axis=1)
+    s0 = np.array([core.decided(u) == 1 for u in snap.ids], dtype=np.uint8)
+    uncovered = int(((s0[kedges[:, 0]] | s0[kedges[:, 1]]) == 0).sum())
+    if uncovered:
+        raise RuntimeError(
+            f"phase-1 decisions leave {uncovered} kernel edges uncovered")
+    return snap, kedges, s0
 
 
 @dataclasses.dataclass
@@ -326,14 +350,7 @@ def solve(
         )
 
     # ---- phase 2: local search over the kernel --------------------------
-    snap = core.snapshot()
-    # kernel edges as unique pairs in compacted ids
-    rows = np.repeat(
-        np.arange(snap.n, dtype=np.int64), np.diff(snap.indptr.astype(np.int64))
-    )
-    keep = rows < snap.indices
-    kedges = np.stack([rows[keep], snap.indices[keep]], axis=1)
-    s0 = np.array([core.decided(u) == 1 for u in snap.ids], dtype=np.uint8)
+    snap, kedges, s0 = kernel_state(core)
     ls = CoreLocalSearch(snap.weights, kedges, s0)
 
     assist = None
@@ -347,31 +364,36 @@ def solve(
 
         from gnn_mwvc.solver.device_assist import DeviceAssist
 
+        assist = DeviceAssist(np.full(snap.n, 0.5, np.float32),
+                              device=accel_dev or cpu_dev,
+                              batch=assist_batch, rmax=assist_rmax,
+                              seed=ls_seed)
         # Kernel scores guide the kicks and the region-center sampling.
-        # They come from the threaded C++ forward in a background thread
-        # (these scores only bias kicks/centers); the search starts at once
-        # with uniform kicks / neutral centers and swaps the model bias in
-        # when the scores land (the first ILS kick is far off anyway).
+        # The kernel is scored like a peel round (device at or above
+        # device_min_edges, native C++ forward below) in a background
+        # thread, so the host build and the first-call compile overlap the
+        # search; the loop harvests the scores once the thread is done and
+        # swaps the model bias in (the search starts with uniform kicks and
+        # neutral centers).
+        kscorer = GnnScorer(getattr(scorer, "model", None), native=True)
         holder = {}
+        assist.stats["kernel_score_platform"] = kscorer.device_for(
+            int(snap.indptr[-1])).platform
+        assist.stats["t_kernel_score_s"] = None
 
         def _score_kernel():
+            t0 = time.perf_counter()
             try:
-                cpu_scorer = GnnScorer(
-                    getattr(scorer, "model", None),
-                    device_min_edges=1 << 62, native=True)
-                holder["prob"] = cpu_scorer(snap, weight_scale).astype(
+                holder["prob"] = kscorer(snap, weight_scale).astype(
                     np.float32)
             except Exception as exc:
                 holder["err"] = exc
+            holder["seconds"] = time.perf_counter() - t0
 
         th = threading.Thread(target=_score_kernel, daemon=True,
                               name="assist-kernel-score")
         th.start()
         kick_bias_pending = (th, holder)
-        assist = DeviceAssist(np.full(snap.n, 0.5, np.float32),
-                              device=accel_dev or cpu_dev,
-                              batch=assist_batch, rmax=assist_rmax,
-                              seed=ls_seed)
 
     t2 = time.perf_counter()
     t_best = t2
@@ -430,11 +452,13 @@ def solve(
             th, holder = kick_bias_pending
             if not th.is_alive():
                 kick_bias_pending = None
-                if "prob" in holder:
-                    prob_local = holder["prob"]
-                    kick_bias = np.clip(1.0 - prob_local, 0.05, 1.0).astype(
-                        np.float32)
-                    assist.prob = prob_local  # picked up at next pool refill
+                if "err" in holder:
+                    raise holder["err"]
+                assist.stats["t_kernel_score_s"] = holder["seconds"]
+                prob_local = holder["prob"]
+                kick_bias = np.clip(1.0 - prob_local, 0.05, 1.0).astype(
+                    np.float32)
+                assist.prob = prob_local  # picked up at next pool refill
         if assist is not None:
             prev_best = ls.best_cost
             assist.tick(ls)

@@ -22,7 +22,7 @@ The mesh path keeps the single-chip StickyGnnScorer's economics:
   buffers via the fused `make_sticky_sharded_forward` (scatter runs
   inside shard_map with per-shard local indices) — the single-chip sticky
   scorer's ~n/16 delta economics, not a full (4, P*n_loc) re-upload.
-* `aggregation="auto"` selects the per-shard sorted segment-sum: on GPU
+* the default aggregation is the per-shard sorted segment-sum: on GPU
   meshes the windowed one-hot plan measured far slower (PERF.md), and on
   CPU meshes segment-sum is the plain choice.
 
@@ -74,9 +74,8 @@ class ShardedGnnScorer:
     ----------
     mesh: a `jax.sharding.Mesh` with a "graph" axis (parallel.make_mesh);
         defaults to all visible devices on the graph axis.
-    aggregation: "scatter" (sorted segment-sum per shard), "blocked"
-        (per-shard windowed one-hot plans, ops/blocked.py), or "auto" =
-        scatter (see the module docstring).
+    aggregation: "scatter" (sorted segment-sum per shard, the default)
+        or "blocked" (per-shard windowed one-hot plans, ops/blocked.py).
     min_nodes: below this active count the scorer exits to the legacy
         per-snapshot path (mirrors StickyGnnScorer.device_min_edges; tiny
         kernels are not worth a collective round-trip).  "auto" = 250,000
@@ -85,7 +84,7 @@ class ShardedGnnScorer:
     """
 
     def __init__(self, model: Optional[Model] = None, mesh=None,
-                 aggregation: str = "auto",
+                 aggregation: str = "scatter",
                  rebuild_gadget_frac: float = 0.02,
                  min_nodes="auto",
                  compat: bool = True):
@@ -97,8 +96,8 @@ class ShardedGnnScorer:
         self.parts = int(self.mesh.shape["graph"])
         self._accel = any(
             d.platform != "cpu" for d in np.asarray(self.mesh.devices).flat)
-        if aggregation == "auto":
-            aggregation = "scatter"
+        if aggregation not in ("scatter", "blocked"):
+            raise ValueError(f"unknown aggregation {aggregation!r}")
         self.aggregation = aggregation
         self.rebuild_gadget_frac = rebuild_gadget_frac
         self.min_nodes = (250_000 if self._accel else 0) \

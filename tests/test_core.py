@@ -199,19 +199,47 @@ def test_local_search_forget_diversification():
     assert is_vertex_cover(g, best)
 
 
-@pytest.mark.parametrize("frac_out", [0.3, 1.0])
-def test_local_search_initial_assignment_completed_to_cover(frac_out):
-    """An initial assignment with uncovered edges (peel decisions rewound
-    past a fold) is completed at construction: best() is a cover before any
-    search step, and a budget that ends before phase 2 still writes one."""
-    from tests.conftest import random_graph
+class _GadgetsFirst:
+    """Peel scorer that excludes every fold gadget first (confident 0.0) and
+    scores the rest from a seeded draw: gadget folds then unfold with the
+    gadget out of the cover, their harshest case."""
 
-    g = random_graph(400, 6, seed=21, wmax=30)
-    rng = np.random.default_rng(0)
-    s0 = (rng.random(g.n) >= frac_out).astype(np.uint8)
-    ea = g.edge_array()
-    assert not (s0[ea[:, 0]] | s0[ea[:, 1]]).all()  # s0 is not a cover
-    ls = CoreLocalSearch(g.weights, ea, s0)
-    best = ls.best().astype(bool)
-    assert (best[ea[:, 0]] | best[ea[:, 1]]).all()
-    assert ls.best_cost == int(g.weights[best].sum())
+    def __init__(self, n_org):
+        self.n_org = n_org
+
+    def __call__(self, snap, weight_scale):
+        p = np.random.default_rng(snap.n).random(snap.n).astype(np.float32)
+        p[snap.ids >= self.n_org] = 0.0
+        return p
+
+
+@pytest.mark.parametrize("side,seed", [(30, 77), (30, 108), (40, 290)])
+def test_fold_gadget_adjacency_sorted(side, seed):
+    """Every live adjacency list stays sorted through reductions and peel
+    rounds, a fold gadget's own list included (the merge predicates
+    is_twin / is_dominating / has_independent_neighbors rely on it)."""
+    import bench
+    from gnn_mwvc.solver.pipeline import confidence_order
+
+    g = bench.build_road_graph(side, seed=seed)
+    s = CoreSolver(g.weights, g.edge_array())
+    scorer = _GadgetsFirst(g.n)
+    s.reduce()
+    gadgets_seen = False
+    while s.active_count > 0:
+        s.solve_small_components(75)
+        if s.active_count == 0:
+            break
+        snap = s.snapshot()
+        gadgets_seen |= bool((snap.ids >= g.n).any())
+        for r in range(snap.n):
+            row = snap.indices[snap.indptr[r]:snap.indptr[r + 1]]
+            assert (np.diff(row.astype(np.int64)) > 0).all(), snap.ids[r]
+        prob = scorer(snap, 1.0)
+        order = confidence_order(prob, snap.weights, snap.deg)
+        s.reset_label_count()
+        s.peel(snap.ids[order], prob[order], relable_interval=-1)
+    assert gadgets_seen
+    s.unfold(0)
+    sol = s.solution()
+    assert is_vertex_cover(g, sol) and cover_cost(g, sol) == s.cost

@@ -21,9 +21,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _env(**kw):
+    """The subprocess environment: no JAX settings inherited, and no card
+    visible, so a refusal is checked on a host with a GPU too (and the
+    test suite never opens one)."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("JAX_PLATFORMS", "XLA_FLAGS",
                         "JAX_COMPILATION_CACHE_DIR")}
+    env["CUDA_VISIBLE_DEVICES"] = ""
     env.update(kw)
     env["PYTHONPATH"] = ROOT
     return env
@@ -219,9 +223,18 @@ def test_sharded_aggregate_passes_precision(monkeypatch):
 
 
 def test_sharded_scorer_auto_aggregation_is_segment_sum():
+    """The sharded scorer defaults to the per-shard sorted segment-sum."""
     from gnn_mwvc.parallel import make_mesh
     from gnn_mwvc.solver import ShardedGnnScorer
 
     sh = ShardedGnnScorer(mesh=make_mesh(8))
     assert sh.aggregation == "scatter"
     assert sh.stats["aggregation"] == "scatter"
+
+
+def test_sharded_scorer_rejects_unknown_aggregation():
+    from gnn_mwvc.parallel import make_mesh
+    from gnn_mwvc.solver import ShardedGnnScorer
+
+    with pytest.raises(ValueError, match="aggregation"):
+        ShardedGnnScorer(mesh=make_mesh(8), aggregation="auto")

@@ -142,3 +142,30 @@ def test_batch_cli(tmp_path):
     for s in (1, 2):
         sol = np.loadtxt(out + f"/g{s}.sol", dtype=int)
         assert len(sol) == 300
+
+
+@pytest.mark.parametrize("side,seed", [(30, 77), (30, 108), (40, 290)])
+def test_phase1_decisions_cover_the_kernel(side, seed):
+    """Road graphs on which a neighborhood fold of a fold gadget once took
+    two adjacent neighbors for independent: unfolded with the gadget out,
+    the peel decisions left a kernel edge uncovered.  The phase-2 initial
+    cover (kernel_state) must cover every kernel edge, and a budget that
+    ends before phase 2 writes a valid cover of the reported cost."""
+    import bench
+    from gnn_mwvc.core import CoreSolver
+    from gnn_mwvc.solver.pipeline import gnn_peel, kernel_state
+    from tests.test_core import _GadgetsFirst
+
+    g = bench.build_road_graph(side, seed=seed)
+    core = CoreSolver(g.weights, g.edge_array())
+    t_kernel, _, _ = gnn_peel(core, _GadgetsFirst(g.n),
+                              float(g.weights.max()))
+    core.unfold(t_kernel)
+    snap, kedges, s0 = kernel_state(core)
+    assert len(kedges) and (s0[kedges[:, 0]] | s0[kedges[:, 1]]).all()
+
+    res = solve(g, time_limit=0.0, scorer=_GadgetsFirst(g.n),
+                device_assist=False)
+    assert res.ls_steps == 0
+    assert is_vertex_cover(g, res.solution)
+    assert cover_cost(g, res.solution) == res.cost
